@@ -35,7 +35,7 @@ DEVICES_PER_PROCESS = 4
 
 
 def run_worker(process_id: int, port: int) -> None:
-    from piecewise_icp_tpu.parallel.distributed import initialize_worker
+    from piecewise_icp.parallel.distributed import initialize_worker
 
     initialize_worker(f"127.0.0.1:{port}", NUM_PROCESSES, process_id,
                       local_cpu_devices=DEVICES_PER_PROCESS)
@@ -50,10 +50,10 @@ def run_worker(process_id: int, port: int) -> None:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from util import make_pair, small_test_config
 
-    from piecewise_icp_tpu.models.piecewise_icp import piecewise_icp
-    from piecewise_icp_tpu.ops.transform import (apply_transform_np,
+    from piecewise_icp.models.piecewise_icp import piecewise_icp
+    from piecewise_icp.ops.transform import (apply_transform_np,
                                                  matrix_to_params_gon)
-    from piecewise_icp_tpu.parallel.sharded import make_mesh
+    from piecewise_icp.parallel.sharded import make_mesh
 
     # identical deterministic inputs on every controller (in a real
     # campaign both hosts read the same PCDs from the shared FS)

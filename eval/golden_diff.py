@@ -16,7 +16,7 @@ T_rel = GT_i · GT_j^-1 (deviations are ~mgon; plans differ by ~0.5 gon —
 unambiguous).
 
 Usage: python eval/golden_diff.py [--results-root eval] [--json out.json]
-Host-only (numpy); no TPU needed.
+Host-only (numpy); no accelerator needed.
 """
 
 from __future__ import annotations
@@ -30,12 +30,12 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from piecewise_icp_tpu.io.formats import (  # noqa: E402
+from piecewise_icp.io.formats import (  # noqa: E402
     read_ground_truth_transforms,
     read_reg_pairs,
     read_trans_matrix_report,
 )
-from piecewise_icp_tpu.ops.transform import matrix_to_angles  # noqa: E402
+from piecewise_icp.ops.transform import matrix_to_angles  # noqa: E402
 
 REF_DIR = pathlib.Path("/root/reference/python/results/4DPCReg")
 GT_PATH = pathlib.Path(

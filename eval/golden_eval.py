@@ -1,4 +1,4 @@
-"""Full golden evaluation on real TPU hardware.
+"""Full golden evaluation on the accelerator.
 
 Runs the complete 4D registration of the reference's 20-epoch synthetic
 series (all pair modes, the exact workload behind
@@ -38,11 +38,11 @@ def main() -> int:
     ap.add_argument("--out-tag", default=None)
     args = ap.parse_args()
 
-    from piecewise_icp_tpu.utils.cache import enable_compilation_cache
+    from piecewise_icp.utils.cache import enable_compilation_cache
     enable_compilation_cache()
-    from piecewise_icp_tpu.config import PiecewiseICPConfig
-    from piecewise_icp_tpu.io import formats
-    from piecewise_icp_tpu.models.four_d import run_4d
+    from piecewise_icp.config import PiecewiseICPConfig
+    from piecewise_icp.io import formats
+    from piecewise_icp.models.four_d import run_4d
 
     tag = args.out_tag or f"mode{args.mode}"
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -92,7 +92,7 @@ def main() -> int:
         ref_chained = f"{REF}/results/4DPCReg/TransMatrices_toRef.txt"
         ours_chained = os.path.join(out_dir, "TransMatrices_toRef.txt")
         if os.path.exists(ref_chained) and os.path.exists(ours_chained):
-            from piecewise_icp_tpu.ops.transform import matrix_to_params_gon
+            from piecewise_icp.ops.transform import matrix_to_params_gon
 
             n_pairs = args.epochs - 1
             _, ours_tm, _ = formats.read_trans_matrices(ours_chained,

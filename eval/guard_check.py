@@ -35,13 +35,13 @@ def main() -> int:
     ap.add_argument("--draws", type=int, default=None)
     args = ap.parse_args()
 
-    from piecewise_icp_tpu.utils.cache import enable_compilation_cache
+    from piecewise_icp.utils.cache import enable_compilation_cache
     enable_compilation_cache()
-    from piecewise_icp_tpu.config import PiecewiseICPConfig
-    from piecewise_icp_tpu.io import read_pcd
-    from piecewise_icp_tpu.io.formats import read_ground_truth_transforms
-    from piecewise_icp_tpu.models.pairwise import prepare_target, register_pair
-    from piecewise_icp_tpu.ops.transform import matrix_to_angles
+    from piecewise_icp.config import PiecewiseICPConfig
+    from piecewise_icp.io import read_pcd
+    from piecewise_icp.io.formats import read_ground_truth_transforms
+    from piecewise_icp.models.pairwise import prepare_target, register_pair
+    from piecewise_icp.ops.transform import matrix_to_angles
 
     gt_ts, gt_tm = read_ground_truth_transforms(GT)
     gt = dict(zip(gt_ts, gt_tm))

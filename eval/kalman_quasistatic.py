@@ -11,7 +11,7 @@ noise realisation, ground truth identity throughout.  Per-epoch direct-mode
 truth — exactly the white-noise regime — and the RTS smoother with auto-Q
 must recover a real error reduction (steady-state variance ~ sqrt(Q R)).
 
-Usage: python eval/kalman_quasistatic.py [--epochs 12] [--tpu]
+Usage: python eval/kalman_quasistatic.py [--epochs 12]
 Writes eval/kalman_quasistatic.json.
 """
 
@@ -34,7 +34,7 @@ WORKDIR = "/tmp/pwicp_quasistatic"
 
 
 def generate(workdir: str, epochs: int, noise: float = 5e-4) -> None:
-    from piecewise_icp_tpu.io import read_pcd, write_pcd
+    from piecewise_icp.io import read_pcd, write_pcd
 
     scans = os.path.join(workdir, "scans")
     os.makedirs(scans, exist_ok=True)
@@ -57,20 +57,13 @@ def generate(workdir: str, epochs: int, noise: float = 5e-4) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--epochs", type=int, default=12)
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the ambient TPU backend (default: CPU — "
-                         "this is an accuracy demo)")
     ap.add_argument("--fresh", action="store_true")
     args = ap.parse_args()
 
-    if not args.tpu:
-        import jax
-        jax.config.update("jax_platforms", "cpu")
-
-    from piecewise_icp_tpu.config import PiecewiseICPConfig
-    from piecewise_icp_tpu.io import formats
-    from piecewise_icp_tpu.models.four_d import run_4d
-    from piecewise_icp_tpu.utils.cache import enable_compilation_cache
+    from piecewise_icp.config import PiecewiseICPConfig
+    from piecewise_icp.io import formats
+    from piecewise_icp.models.four_d import run_4d
+    from piecewise_icp.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
@@ -101,7 +94,7 @@ def main() -> int:
     # patch-sampling bias) that no smoother can remove — split it off:
     # the independent (per-epoch) component is what the RTS smoother is
     # predicted to shrink by ~sqrt(N)
-    from piecewise_icp_tpu.ops.transform import matrix_to_params_gon
+    from piecewise_icp.ops.transform import matrix_to_params_gon
 
     def signed(fname):
         _, mats, _ = formats.read_trans_matrices(

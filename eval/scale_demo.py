@@ -41,15 +41,15 @@ def generate_series(out_dir: str, n_epochs: int, seed: int = 0,
     ``downsample`` > 0 voxel-thins the base scan first (lighter series for
     CPU-backend fleet measurements).
     """
-    from piecewise_icp_tpu.io import read_pcd, write_pcd
-    from piecewise_icp_tpu.ops.transform import (apply_transform_np,
+    from piecewise_icp.io import read_pcd, write_pcd
+    from piecewise_icp.ops.transform import (apply_transform_np,
                                                  params_to_matrix)
 
     scans = os.path.join(out_dir, "scans")
     os.makedirs(scans, exist_ok=True)
     base = read_pcd(REF_SCAN)
     if downsample > 0:
-        from piecewise_icp_tpu.ops.preprocess import voxel_downsample
+        from piecewise_icp.ops.preprocess import voxel_downsample
         base = np.asarray(voxel_downsample(base, downsample))
     rng = np.random.default_rng(seed)
     gt = [np.eye(4)]
@@ -86,10 +86,10 @@ def main() -> int:
     ap.add_argument("--workdir", default="/tmp/pwicp_scale")
     args = ap.parse_args()
 
-    from piecewise_icp_tpu.config import PiecewiseICPConfig
-    from piecewise_icp_tpu.io import formats
-    from piecewise_icp_tpu.models.four_d import run_4d
-    from piecewise_icp_tpu.utils.cache import enable_compilation_cache
+    from piecewise_icp.config import PiecewiseICPConfig
+    from piecewise_icp.io import formats
+    from piecewise_icp.models.four_d import run_4d
+    from piecewise_icp.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     os.makedirs(args.workdir, exist_ok=True)

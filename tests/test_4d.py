@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from piecewise_icp_tpu.config import PiecewiseICPConfig
-from piecewise_icp_tpu.io import formats, write_pcd
-from piecewise_icp_tpu.models.four_d import run_4d
-from piecewise_icp_tpu.ops.transform import apply_transform_np, \
+from piecewise_icp.config import PiecewiseICPConfig
+from piecewise_icp.io import formats, write_pcd
+from piecewise_icp.models.four_d import run_4d
+from piecewise_icp.ops.transform import apply_transform_np, \
     params_to_matrix
 
 from util import small_test_config, terrain_cloud
@@ -148,7 +148,7 @@ class Test4DPipeline:
         assert np.isfinite(sm).all()
         # smoothing must not degrade accuracy against ground truth: compare
         # mean absolute parameter error (gon / m) of raw vs smoothed
-        from piecewise_icp_tpu.ops.transform import matrix_to_params_gon
+        from piecewise_icp.ops.transform import matrix_to_params_gon
         gt_params = np.stack([matrix_to_params_gon(g) for g in gt[1:]])
         raw_err = np.abs(raw[:, 1:7] - gt_params).mean()
         sm_err = np.abs(sm[:, 1:7] - gt_params).mean()
@@ -185,9 +185,9 @@ def test_adaptive_plan_identical_to_naive_scan(tmp_path, rng):
     Registration.cpp:552-589) on an advancing-target series."""
     import jax.numpy as jnp
 
-    from piecewise_icp_tpu.io import write_pcd
-    from piecewise_icp_tpu.models.four_d import adaptive_pair_sequence
-    from piecewise_icp_tpu.ops.preprocess import overlap_ratio
+    from piecewise_icp.io import write_pcd
+    from piecewise_icp.models.four_d import adaptive_pair_sequence
+    from piecewise_icp.ops.preprocess import overlap_ratio
 
     base = (rng.uniform(size=(3000, 3)) * 2).astype(np.float32)
     drift = np.zeros(3, np.float32)

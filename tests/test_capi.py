@@ -7,9 +7,9 @@ import os
 import numpy as np
 import pytest
 
-from piecewise_icp_tpu import native
-from piecewise_icp_tpu.config import PiecewiseICPConfig
-from piecewise_icp_tpu.io import formats, write_pcd
+from piecewise_icp import native
+from piecewise_icp.config import PiecewiseICPConfig
+from piecewise_icp.io import formats, write_pcd
 
 from util import make_pair, small_test_config
 

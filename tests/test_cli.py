@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from piecewise_icp_tpu.__main__ import main
-from piecewise_icp_tpu.io import formats, write_pcd
+from piecewise_icp.__main__ import main
+from piecewise_icp.io import formats, write_pcd
 
 from test_4d import _make_series
 from util import make_pair, small_test_config
@@ -39,7 +39,7 @@ class TestCLI:
                                 path2=str(out_dir) + os.sep)
         conf = tmp_path / "conf.txt"
         cfg.to_reference_file(conf)
-        # NOTE: reference-format config files do not carry the TPU-build
+        # NOTE: reference-format config files do not carry this build's
         # extras, so the CLI run uses default pads — exercise defaults here
         rc = main(["4d", "--config", str(conf), "--epochs", "3",
                    "--mode", "0", "--kalman",

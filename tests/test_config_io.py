@@ -5,17 +5,43 @@ import os
 import numpy as np
 import pytest
 
-from piecewise_icp_tpu.config import ConfigError, PiecewiseICPConfig
-from piecewise_icp_tpu.io import (extract_time_from_filename, formats,
+from piecewise_icp.config import ConfigError, PiecewiseICPConfig
+from piecewise_icp.io import (extract_time_from_filename, formats,
                                   read_pcd, scan_epoch_folder, write_pcd)
 
-REF_CONF_4D = "/root/reference/configuration_files/configuration_4d.txt"
-REF_CONF_PAIR = "/root/reference/configuration_files/configuration_pair.txt"
+# The reference's two shipped 11-line configurations
+# (configuration_files/configuration_4d.txt and configuration_pair.txt).
+REF_CONF_4D = """string FolderFilePath1: data/data_synthetic/syntheticPC_with_transformations
+string FolderFilePath2: results/4DPCReg/
+bool isSetResSVsize (yes-1, no-0): 1
+float PCres1 (m): 0.005
+float PCres2 (m): 0.005
+float SVsize1 (m): 0.05
+float SVsize2 (m): 0.05
+bool isSetDTinit (yes-1, no-0): 1
+float DTinit (m): 0.05
+float DTmin (m): 0.004
+bool isVisual (yes-1, no-0): 0
+"""
+REF_CONF_PAIR = """string FolderFilePath1: data/data_rockfall/SINGLESCANS - 210729_120011.pcd
+string FolderFilePath2: data/data_rockfall/SINGLESCANS - 210830_180032.pcd
+bool isSetResSVsize (yes-1, no-0): 1
+float PCres1 (m): 0.3
+float PCres2 (m): 0.3
+float SVsize1 (m): 3
+float SVsize2 (m): 3
+bool isSetDTinit (yes-1, no-0): 1
+float DTinit (m): 0.1
+float DTmin (m): 0.03
+bool isVisual (yes-1, no-0): 1
+"""
 
 
 class TestConfig:
-    def test_parse_reference_4d_config(self):
-        cfg = PiecewiseICPConfig.from_reference_file(REF_CONF_4D)
+    def test_parse_reference_4d_config(self, tmp_path):
+        p = tmp_path / "configuration_4d.txt"
+        p.write_text(REF_CONF_4D)
+        cfg = PiecewiseICPConfig.from_reference_file(p)
         assert cfg.path1.endswith("syntheticPC_with_transformations")
         assert cfg.path2 == "results/4DPCReg/"
         assert cfg.set_res_svsize is True
@@ -26,8 +52,10 @@ class TestConfig:
         assert cfg.dt_min == pytest.approx(0.004)
         assert cfg.visual is False
 
-    def test_parse_reference_pair_config(self):
-        cfg = PiecewiseICPConfig.from_reference_file(REF_CONF_PAIR)
+    def test_parse_reference_pair_config(self, tmp_path):
+        p = tmp_path / "configuration_pair.txt"
+        p.write_text(REF_CONF_PAIR)
+        cfg = PiecewiseICPConfig.from_reference_file(p)
         assert cfg.res1 == pytest.approx(0.3)
         assert cfg.svsize1 == pytest.approx(3.0)
         assert cfg.dt_min == pytest.approx(0.03)
@@ -93,7 +121,7 @@ class TestPCD:
         np.testing.assert_array_equal(back, pts)
 
     def test_lzf_codec_roundtrip(self, rng):
-        from piecewise_icp_tpu.io.pcd import _lzf_compress, _lzf_decompress
+        from piecewise_icp.io.pcd import _lzf_compress, _lzf_decompress
 
         for payload in (b"", b"a", b"abc" * 1000,
                         rng.integers(0, 4, 10000).astype(np.uint8).tobytes(),
@@ -102,9 +130,9 @@ class TestPCD:
             assert _lzf_decompress(comp, len(payload)) == payload
 
     def test_lzf_native_and_python_agree(self, rng):
-        pytest.importorskip("piecewise_icp_tpu.native")
-        from piecewise_icp_tpu import native
-        from piecewise_icp_tpu.io import pcd as pcd_mod
+        pytest.importorskip("piecewise_icp.native")
+        from piecewise_icp import native
+        from piecewise_icp.io import pcd as pcd_mod
 
         if not native.available():
             pytest.skip("native lib unavailable")

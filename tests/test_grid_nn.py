@@ -4,8 +4,8 @@ non-uniform densities."""
 import jax.numpy as jnp
 import numpy as np
 
-from piecewise_icp_tpu.ops.grid_nn import build_grid, grid_nn1
-from piecewise_icp_tpu.ops.nn import nn1
+from piecewise_icp.ops.grid_nn import build_grid, grid_nn1
+from piecewise_icp.ops.nn import nn1
 
 
 def _brute(q, t):
@@ -94,7 +94,7 @@ class TestGridNN:
 
 class TestGridPercentile:
     def test_matches_reference_semantics(self, rng):
-        from piecewise_icp_tpu.ops.grid_nn import grid_percentile
+        from piecewise_icp.ops.grid_nn import grid_percentile
 
         t = rng.uniform(0, 2, size=(2000, 3)).astype(np.float32)
         s = rng.uniform(0, 2, size=(1500, 3)).astype(np.float32)
@@ -105,7 +105,7 @@ class TestGridPercentile:
         assert abs(p - ref) < 1e-5
 
     def test_exact_with_far_stragglers(self, rng):
-        from piecewise_icp_tpu.ops.grid_nn import grid_percentile
+        from piecewise_icp.ops.grid_nn import grid_percentile
 
         t = rng.uniform(0, 1, size=(1000, 3)).astype(np.float32)
         s_near = (t[:700] + rng.normal(scale=1e-3, size=(700, 3))
@@ -121,7 +121,7 @@ class TestGridPercentile:
         assert abs(p - ref) < 1e-4
 
     def test_masked_sources(self, rng):
-        from piecewise_icp_tpu.ops.grid_nn import grid_percentile
+        from piecewise_icp.ops.grid_nn import grid_percentile
 
         t = rng.uniform(size=(800, 3)).astype(np.float32)
         s = rng.uniform(size=(600, 3)).astype(np.float32)
@@ -135,45 +135,27 @@ class TestGridPercentile:
         assert abs(p - ref) < 1e-5
 
 
-class TestSlabPaddedSelfJoin:
+class TestGridSelfKnn:
     def test_exact_knn_full_windows(self, rng):
-        """The slab-padded self-join must deliver EXACT kNN for every
-        real point whose k-th neighbour lies within h — across many
-        x-slabs, with no wrap tiles and no truncated windows (the
-        round-3/4 segmentation quality caveat)."""
-        import jax.numpy as jnp
-
-        from piecewise_icp_tpu.ops.grid_nn import (build_grid,
-                                                   slab_padded_self_join)
-        from piecewise_icp_tpu.ops.nn_pallas import (_KQT, _TPB,
-                                                     grid_knn_sorted)
+        """The bucket-padded self-join delivers EXACT kNN for every real
+        point — inside the window by the grid query, beyond it by the
+        straggler fallback — in the grid's sorted order."""
+        from piecewise_icp.ops.grid_nn import build_grid, grid_self_knn
 
         pts = (rng.uniform(size=(3000, 2)) * np.array([2.0, 1.0]))
         z = 0.1 * np.sin(pts[:, 0] * 4)
         pts = np.column_stack([pts, z]).astype(np.float32)
         k, h = 8, 0.12
         grid = build_grid(pts, h)
-        sp = slab_padded_self_join(grid, lane=_KQT, block=_KQT * _TPB,
-                                   tile_multiple=_TPB)
-        assert sp.covered.all()
-        # every real point appears exactly once
-        real = sp.real_mask
-        assert real.sum() == grid.n_real
-        assert len(np.unique(sp.orig_idx[real])) == grid.n_real
-        _, d, resolved = grid_knn_sorted(
-            jnp.asarray(sp.points), jnp.asarray(real),
-            jnp.asarray(sp.points), jnp.zeros((1,), jnp.int32),
-            jnp.asarray(grid.origin), jnp.asarray(grid.dims, jnp.int32),
-            jnp.asarray(grid.h, jnp.float32), k, interpret=True,
-            host_ranges=(jnp.asarray(sp.ranges), jnp.asarray(sp.covered)))
-        d = np.asarray(d)[real]
-        idx_orig = sp.orig_idx[real]
-        # exact reference kNN distances
+        nbr, d = (np.asarray(a) for a in grid_self_knn(grid, k))
+        n = grid.n_real
+        assert grid.points.shape[0] > n           # bucket padding exists
+        idx_orig = grid.ids[:n]
         d2 = ((pts[:, None, :].astype(np.float64)
                - pts[None, :, :].astype(np.float64)) ** 2).sum(-1)
         ref_d = np.sqrt(np.sort(d2, axis=1)[:, :k])
-        res = np.asarray(resolved)[real]
-        kth_in = ref_d[idx_orig, -1] <= h
-        assert res[kth_in].all()          # full window => resolved
-        np.testing.assert_allclose(d[kth_in], ref_d[idx_orig][kth_in],
+        np.testing.assert_allclose(d[:n], ref_d[idx_orig],
                                    rtol=1e-4, atol=1e-6)
+        # neighbour rows index the sorted cloud, self first
+        assert (nbr[:n, 0] == np.arange(n)).all()
+        assert (nbr[n:] == -1).all()

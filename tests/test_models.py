@@ -9,15 +9,15 @@ import pytest
 
 SYN_DATA = "/root/reference/python/data/data_synthetic"
 
-from piecewise_icp_tpu.config import ARC_TO_GON, PiecewiseICPConfig
-from piecewise_icp_tpu.models.chaining import (absolute_errors,
+from piecewise_icp.config import ARC_TO_GON, PiecewiseICPConfig
+from piecewise_icp.models.chaining import (absolute_errors,
                                                chain_to_reference)
-from piecewise_icp_tpu.models.icp import compute_vcm, point_to_plane_icp
-from piecewise_icp_tpu.models.kalman import kalman_smooth_transforms
-from piecewise_icp_tpu.models.piecewise_icp import piecewise_icp
-from piecewise_icp_tpu.models.segmentation import build_patches, \
+from piecewise_icp.models.icp import compute_vcm, point_to_plane_icp
+from piecewise_icp.models.kalman import kalman_smooth_transforms
+from piecewise_icp.models.piecewise_icp import piecewise_icp
+from piecewise_icp.models.segmentation import build_patches, \
     estimate_normals, knn_graph
-from piecewise_icp_tpu.ops.transform import (adjoint_6x6,
+from piecewise_icp.ops.transform import (adjoint_6x6,
                                              apply_transform_np,
                                              matrix_to_params_gon,
                                              params_to_matrix)
@@ -292,9 +292,9 @@ class TestSymmetricVariant:
         """
         import dataclasses as dc
 
-        from piecewise_icp_tpu.io import formats, read_pcd
-        from piecewise_icp_tpu.models.pairwise import register_pair
-        from piecewise_icp_tpu.ops.transform import matrix_to_params_gon
+        from piecewise_icp.io import formats, read_pcd
+        from piecewise_icp.models.pairwise import register_pair
+        from piecewise_icp.ops.transform import matrix_to_params_gon
 
         syn = SYN_DATA
         cfg = small_test_config(
@@ -521,7 +521,7 @@ class TestKalmanAutoQSafety:
 
 class TestChainingFixedStride:
     def test_stride_two(self, rng):
-        from piecewise_icp_tpu.models.chaining import chain_to_reference
+        from piecewise_icp.models.chaining import chain_to_reference
 
         tms = [params_to_matrix(np.concatenate([
             rng.normal(scale=1e-3, size=3),
@@ -543,7 +543,7 @@ class TestRobustRefine:
         """Plane-ish patch centroids; a coherent sub-LoD 'changed' block
         offset along the normals (the leak the DT classification cannot
         exclude)."""
-        from piecewise_icp_tpu.models.piecewise_icp import _robust_refine
+        from piecewise_icp.models.piecewise_icp import _robust_refine
 
         xy = rng.uniform(0, 2, size=(n, 2))
         # curved surface -> varied normals (a pure plane leaves the 6x6
@@ -575,7 +575,7 @@ class TestRobustRefine:
         assert (rejected & leak).sum() > 0.7 * rejected.sum()
         # the correction counteracts the absorbed leak: applying it to
         # the contaminated LSQ state must REDUCE the clean-patch misfit
-        from piecewise_icp_tpu.ops.transform import apply_transform_np
+        from piecewise_icp.ops.transform import apply_transform_np
         clean = ~leak
         d_before = np.abs(np.einsum(
             "ij,ij->i", ct2[clean] - ct1[clean], n1[clean]))
@@ -597,8 +597,8 @@ class TestRobustRefine:
 
 class TestPatchSetTransformed:
     def test_rigid_map_including_normals(self, rng):
-        from piecewise_icp_tpu.models.segmentation import PatchSet
-        from piecewise_icp_tpu.ops.transform import apply_transform_np, \
+        from piecewise_icp.models.segmentation import PatchSet
+        from piecewise_icp.ops.transform import apply_transform_np, \
             params_to_matrix
 
         n, p = 50, 4
@@ -634,7 +634,7 @@ class TestWarmStart:
         """A pair displaced far beyond DTinit fails (or lands in a wrong
         basin) cold; with a chain-style initial guess the registration
         recovers the exact transform and composes the guess back in."""
-        from piecewise_icp_tpu.models.pairwise import register_pair
+        from piecewise_icp.models.pairwise import register_pair
 
         params = np.array([0.002, -0.001, 0.002, 0.15, -0.12, 0.08])
         c1, c2, t_true = make_pair(rng, params)   # 15 cm offsets

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from piecewise_icp_tpu import native
+from piecewise_icp import native
 
 
 @pytest.fixture(scope="module")

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from piecewise_icp_tpu.ops import transform as tf
-from piecewise_icp_tpu.ops.eigh3 import cov3_from_points, eigh3, eigvals3
-from piecewise_icp_tpu.ops.nn import knn, nn1
-from piecewise_icp_tpu.ops import segment_ops as seg
-from piecewise_icp_tpu.ops.preprocess import (estimate_resolution,
+from piecewise_icp.ops import transform as tf
+from piecewise_icp.ops.eigh3 import cov3_from_points, eigh3, eigvals3
+from piecewise_icp.ops.nn import knn, nn1
+from piecewise_icp.ops import segment_ops as seg
+from piecewise_icp.ops.preprocess import (estimate_resolution,
                                               overlap_ratio, percentile_c2c,
                                               preprocess_cloud,
                                               sor_filter_mask,
@@ -269,8 +269,8 @@ class TestPreprocess:
         assert r == pytest.approx(0.6, abs=0.01)
 
     def test_overlap_ratio_grid_matches_brute(self, rng):
-        from piecewise_icp_tpu.ops.grid_nn import build_grid
-        from piecewise_icp_tpu.ops.preprocess import overlap_ratio_grid
+        from piecewise_icp.ops.grid_nn import build_grid
+        from piecewise_icp.ops.preprocess import overlap_ratio_grid
 
         t = rng.uniform(size=(800, 3)).astype(np.float32) * 2.0
         s = (t[:500] + rng.normal(scale=0.03, size=(500, 3))
@@ -283,9 +283,9 @@ class TestPreprocess:
             assert fast == pytest.approx(brute, abs=1e-7), dt
 
     def test_native_sor_matches_device_stat(self, rng):
-        pytest.importorskip("piecewise_icp_tpu.native")
-        from piecewise_icp_tpu import native
-        from piecewise_icp_tpu.ops.nn import knn as brute_knn
+        pytest.importorskip("piecewise_icp.native")
+        from piecewise_icp import native
+        from piecewise_icp.ops.nn import knn as brute_knn
 
         if not native.available():
             pytest.skip("native lib unavailable")
@@ -298,27 +298,28 @@ class TestPreprocess:
                                    atol=1e-7)
 
     def test_device_sor_mask_matches_native(self, rng):
-        """The fused device SOR (one dispatch, three-range slab kNN) must
-        reproduce the native OpenMP statistic's keep decision exactly
-        (VERDICT r3 weak #7 'exactness test vs the native statistic')."""
-        pytest.importorskip("piecewise_icp_tpu.native")
-        from piecewise_icp_tpu import native
-        from piecewise_icp_tpu.ops.preprocess import sor_keep_mask_device
+        """The device SOR (exact grid k-NN with straggler fallback, one
+        threshold program) must reproduce the native OpenMP statistic's
+        keep decision exactly."""
+        pytest.importorskip("piecewise_icp.native")
+        from piecewise_icp import native
+        from piecewise_icp.ops.preprocess import sor_filter_mask
 
         if not native.available():
             pytest.skip("native lib unavailable")
         from util import terrain_cloud
 
-        pts = terrain_cloud(rng, n_side=60)          # ~3.6k surface points
+        pts = terrain_cloud(rng, n_side=70)          # ~4.9k surface points
         # salt with far outliers that SOR must drop
         out = rng.uniform(low=-1.0, high=3.0, size=(24, 3)).astype(
             np.float32)
         out[:, 2] += 5.0
         pts = np.vstack([pts, out])
+        assert len(pts) > 4096                       # the grid path
         res = 0.033
         k, mult = 14, 2.7
-        keep_dev = sor_keep_mask_device(pts, res, k, mult, interpret=True)
-        assert keep_dev is not None
+        keep_dev = np.asarray(sor_filter_mask(jnp.asarray(pts), None, k=k,
+                                              std_mult=mult, resolution=res))
         mean_native = native.sor_mean_dist(pts, k).astype(np.float64)
         mu = mean_native.mean()
         var = ((mean_native - mu) ** 2).sum() / max(len(mean_native) - 1, 1)

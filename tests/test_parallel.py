@@ -14,13 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from piecewise_icp_tpu.models.piecewise_icp import (_iteration_step,
+from piecewise_icp.models.piecewise_icp import (_iteration_step,
                                                     _pad, _mask,
                                                     piecewise_icp)
-from piecewise_icp_tpu.models.segmentation import build_patches
-from piecewise_icp_tpu.ops.grid_nn import build_grid
-from piecewise_icp_tpu.ops.transform import matrix_to_angles
-from piecewise_icp_tpu.parallel.sharded import (build_sharded_iteration,
+from piecewise_icp.models.segmentation import build_patches
+from piecewise_icp.ops.grid_nn import build_grid
+from piecewise_icp.ops.transform import matrix_to_angles
+from piecewise_icp.parallel.sharded import (build_sharded_iteration,
                                                 make_mesh, point_sharded,
                                                 replicated)
 
@@ -127,7 +127,7 @@ class TestShardedIteration:
         # sanity: the registration recovers the true transform (T_est maps
         # cloud2 back onto cloud1, i.e. T_est ≈ T_true^-1); point-residual
         # metric as in test_models
-        from piecewise_icp_tpu.ops.transform import apply_transform_np
+        from piecewise_icp.ops.transform import apply_transform_np
         m = res_mesh.trans_mat @ t_true
         disp = np.linalg.norm(apply_transform_np(c2.astype(np.float64), m)
                               - c2.astype(np.float64), axis=1)

@@ -18,8 +18,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "eval"))
 
 import rockfall_sim  # noqa: E402
 
-from piecewise_icp_tpu.io import formats, read_pcd  # noqa: E402
-from piecewise_icp_tpu.io.folders import scan_epoch_folder  # noqa: E402
+from piecewise_icp.io import formats, read_pcd  # noqa: E402
+from piecewise_icp.io.folders import scan_epoch_folder  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +73,7 @@ def test_scars_grow_only_in_later_epochs(series):
     files = sorted(os.listdir(scans))
     epochs, gt = formats.read_ground_truth_transforms(
         os.path.join(out, "defined_transformations.txt"))
-    from piecewise_icp_tpu.ops.transform import apply_transform_np
+    from piecewise_icp.ops.transform import apply_transform_np
 
     a = read_pcd(os.path.join(scans, files[0]))
     c = apply_transform_np(
@@ -95,8 +95,8 @@ def test_scars_grow_only_in_later_epochs(series):
 def test_clean_registration_recovers_gt(tmp_path):
     """Noise-free scene: the full pairwise pipeline on the rockfall
     geometry recovers the GT transform to a few mgon / mm."""
-    from piecewise_icp_tpu.models.pairwise import register_pair
-    from piecewise_icp_tpu.ops.transform import matrix_to_params_gon
+    from piecewise_icp.models.pairwise import register_pair
+    from piecewise_icp.ops.transform import matrix_to_params_gon
 
     scans = rockfall_sim.generate_rockfall(
         str(tmp_path), n_epochs=2, extent=(60.0, 40.0), res=0.45,

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from piecewise_icp_tpu.io import read_pcd
-from piecewise_icp_tpu.utils import viz
+from piecewise_icp.io import read_pcd
+from piecewise_icp.utils import viz
 
 
 class TestVizExports:
@@ -42,8 +42,8 @@ class TestVizExports:
 
 
 def test_three_clouds_export(tmp_path, rng):
-    from piecewise_icp_tpu.io import read_pcd
-    from piecewise_icp_tpu.utils import viz
+    from piecewise_icp.io import read_pcd
+    from piecewise_icp.utils import viz
 
     t = rng.normal(size=(40, 3)).astype(np.float32)
     s = rng.normal(size=(30, 3)).astype(np.float32)

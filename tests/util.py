@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from piecewise_icp_tpu.ops.transform import apply_transform_np, \
+from piecewise_icp.ops.transform import apply_transform_np, \
     params_to_matrix
 
 
@@ -44,7 +44,7 @@ def make_pair(rng, params, **kw):
 
 
 def small_test_config(**overrides):
-    from piecewise_icp_tpu.config import PiecewiseICPConfig
+    from piecewise_icp.config import PiecewiseICPConfig
 
     # nn_impl="native": exact kNN graphs keep these noise-dominated small
     # scenes deterministic; the grid path is covered by test_grid_nn and an
